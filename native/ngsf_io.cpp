@@ -1,6 +1,6 @@
 // Native IO core: streaming genotype-likelihood / position readers.
 //
-// TPU-native equivalent of the reference's C++ IO layer (reference:
+// Accelerator-side equivalent of the reference's C++ IO layer (reference:
 // shared/read_data.cpp:13-218, shared/gen_func.cpp:389-416 tokenizer,
 // gen_func.cpp:920-932 normalisation), built as a shared library driven
 // from Python via ctypes (io/native.py). Single-pass and allocation-lean

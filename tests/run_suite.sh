@@ -1,7 +1,6 @@
 #!/usr/bin/env bash
-# Crash-isolated suite runner (round-4 VERDICT Weak #6): the full suite is
-# ~45 min in one process, and a single upstream XLA-CPU compile segfault
-# (observed once, non-reproducible) would void the whole run. This runs the
+# Crash-isolated suite runner: a single upstream XLA-CPU compile segfault
+# (observed once, non-reproducible) would void a one-process run. This runs the
 # suite as independent pytest PROCESSES per group, survives any group
 # crashing (segfault/abort), and prints a partial report: a crashed group is
 # reported as CRASH(rc) and every other group still completes.
@@ -17,14 +16,14 @@ cd "$(dirname "$0")/.."
 MODE="${1:-full}"
 
 # group name | pytest selection
-# The 10x10k golden matrix gets its own group (round-4 VERDICT ask #7): it
-# is the longest and the most likely to be the only thing a rerun needs.
+# The 10x10k golden matrix gets its own group: it is the longest and the
+# most likely to be the only thing a rerun needs.
 SUITE=(
   "kernels|tests/test_hmm.py tests/test_hmm_blocked.py"
-  "pallas|tests/test_hmm_pallas.py tests/test_hmm_pallas_fused.py"
+  "triton|tests/test_hmm_pallas.py tests/test_hmm_pallas_fused.py"
   "ops|tests/test_ops.py tests/test_maf.py tests/test_ld_path.py"
   "lbfgsb|tests/test_lbfgsb.py"
-  "io|tests/test_native_io.py tests/test_glsource.py tests/test_checkpoint.py tests/test_gsl_fixture.py tests/test_tools.py"
+  "io|tests/test_native_io.py tests/test_glsource.py tests/test_checkpoint.py tests/test_gsl_fixture.py tests/test_tools.py tests/test_compile_cache.py"
   "compat|tests/test_em_compat.py tests/test_opt_compat.py"
   "sharding|tests/test_sharding.py tests/test_sharded_driver.py"
   "site_sharding|tests/test_site_sharding.py"

@@ -10,9 +10,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from ngsf_hmm_tpu.io.checkpoint import load_checkpoint, save_checkpoint
-from ngsf_hmm_tpu.models.em import EMOptions, init_state, run_em
-from ngsf_hmm_tpu.tools.simulate import simulate
+from ngsf_hmm.io.checkpoint import load_checkpoint, save_checkpoint
+from ngsf_hmm.models.em import EMOptions, init_state, run_em
+from ngsf_hmm.tools.simulate import simulate
 
 
 @pytest.fixture(scope="module")
@@ -20,8 +20,8 @@ def data(tmp_path_factory):
     d = tmp_path_factory.mktemp("ckpt")
     simulate(n_ind=4, n_sites=250, freq="0.2", site_pos="r", indF="0.5",
              alpha="0.01", depth="2", error=0.01, seed=7, out=str(d / "sim"))
-    from ngsf_hmm_tpu.io import readers
-    from ngsf_hmm_tpu.ops.hwe import post_prob
+    from ngsf_hmm.io import readers
+    from ngsf_hmm.ops.hwe import post_prob
 
     gl = readers.read_geno(str(d / "sim.glf.gz"), 4, 250, probs=True,
                            log_scale=True)
@@ -82,13 +82,13 @@ def test_exact_resume(data, tmp_path):
 def test_checkpoint_rejects_garbage(tmp_path):
     bad = tmp_path / "bad.npz"
     np.savez(bad, __meta__=np.frombuffer(b'{"format": "nope"}', dtype=np.uint8))
-    with pytest.raises(ValueError, match="not a ngsf-hmm-tpu-ckpt"):
+    with pytest.raises(ValueError, match="not a ngsf-hmm-ckpt"):
         load_checkpoint(str(bad))
 
 
 def test_cli_checkpoint_resume(data, tmp_path):
     _, _, simdir = data
-    from ngsf_hmm_tpu.cli import main
+    from ngsf_hmm.cli import main
 
     args = (
         "--geno sim.glf.gz --loglkl --pos sim.pos.gz --n_ind 4 --n_sites 250 "
@@ -116,7 +116,7 @@ def test_cli_checkpoint_resume(data, tmp_path):
 
 
 def test_cli_resume_without_checkpoint_errors(data):
-    from ngsf_hmm_tpu.cli import main
+    from ngsf_hmm.cli import main
 
     with contextlib.redirect_stdout(io.StringIO()):
         with pytest.raises(SystemExit):
@@ -130,7 +130,7 @@ def test_restart_exact_resume(data, tmp_path):
     uninterrupted run exactly (per-replicate bookkeeping incl. frozen
     replicates survives the round-trip)."""
     gl, dist, _ = data
-    from ngsf_hmm_tpu.models.restart import (
+    from ngsf_hmm.models.restart import (
         run_em_restarts,
         stack_restart_states,
     )
@@ -174,7 +174,7 @@ def test_cli_checkpoint_n_rep(data, tmp_path):
     checkpoint reproduces the completed run; replicate-count mismatch is
     rejected."""
     _, _, simdir = data
-    from ngsf_hmm_tpu.cli import main
+    from ngsf_hmm.cli import main
 
     args = (
         "--geno sim.glf.gz --loglkl --pos sim.pos.gz --n_ind 4 --n_sites 250 "
@@ -206,7 +206,7 @@ def test_graceful_stop_signal(data):
     """SIGINT between iterations stops the loop cleanly (SIG_COND gate,
     EM.cpp:56) but the run still produces outputs."""
     gl, dist, _ = data
-    from ngsf_hmm_tpu.utils import signals
+    from ngsf_hmm.utils import signals
 
     signals.reset()
     opts = EMOptions(min_iters=2, max_iters=50, min_epsilon=1e-9)
@@ -248,8 +248,8 @@ def test_cli_mesh_light_checkpoint_resume(data, tmp_path):
     errors instead of writing the zeroed p_ibd/ind_lkl placeholders."""
     import numpy as np
 
-    from ngsf_hmm_tpu.cli import main
-    from ngsf_hmm_tpu.io.checkpoint import checkpoint_format
+    from ngsf_hmm.cli import main
+    from ngsf_hmm.io.checkpoint import checkpoint_format
 
     _, _, simdir = data
     base = (

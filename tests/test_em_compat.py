@@ -13,12 +13,12 @@ import jax.numpy as jnp
 import pytest
 
 import oracle
-from ngsf_hmm_tpu.io import native
-from ngsf_hmm_tpu.models import em_compat as ec
-from ngsf_hmm_tpu.models.em import EMOptions, init_state
-from ngsf_hmm_tpu.models.hmm import forward_loglik, posteriors
-from ngsf_hmm_tpu.ops.emissions import calc_emission
-from ngsf_hmm_tpu.ops.maf import est_maf
+from ngsf_hmm.io import native
+from ngsf_hmm.models import em_compat as ec
+from ngsf_hmm.models.em import EMOptions, init_state
+from ngsf_hmm.models.hmm import forward_loglik, posteriors
+from ngsf_hmm.ops.emissions import calc_emission
+from ngsf_hmm.ops.maf import est_maf
 
 RNG = np.random.default_rng(99)
 
@@ -76,7 +76,7 @@ def test_est_maf_ref_matches_exact_damped():
 
 
 def test_viterbi_ref_matches_compat_jnp():
-    from ngsf_hmm_tpu.models.hmm import viterbi
+    from ngsf_hmm.models.hmm import viterbi
 
     gl, freq, dist, F, alpha = _case()
     e = ec.calc_emission_ref(gl, freq[:, None])
@@ -91,7 +91,7 @@ def test_viterbi_ref_matches_compat_jnp():
 def test_run_em_compat_tracks_speed_engine():
     """Converged endpoints agree with the default engine within the
     optimizer-endpoint tolerances that separate the two designs."""
-    from ngsf_hmm_tpu.models.em import run_em
+    from ngsf_hmm.models.em import run_em
 
     # own RNG: endpoint-tolerance gates are draw-sensitive and the
     # module RNG's state depends on test order

@@ -8,10 +8,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from ngsf_hmm_tpu.io import readers
-from ngsf_hmm_tpu.io.glsource import ChunkedGLSource, est_maf_streamed
-from ngsf_hmm_tpu.ops.hwe import call_geno as call_geno_op
-from ngsf_hmm_tpu.ops.hwe import post_prob
+from ngsf_hmm.io import readers
+from ngsf_hmm.io.glsource import ChunkedGLSource, est_maf_streamed
+from ngsf_hmm.ops.hwe import call_geno as call_geno_op
+from ngsf_hmm.ops.hwe import post_prob
 
 RNG = np.random.default_rng(5)
 S, N = 60, 5
@@ -73,7 +73,7 @@ def test_source_call_geno(files):
 
 
 def test_est_maf_streamed_matches_monolithic(files):
-    from ngsf_hmm_tpu.ops.maf import est_maf
+    from ngsf_hmm.ops.maf import est_maf
 
     d, _ = files
     src = ChunkedGLSource(str(d / "g.bin"), N, S, binary=True, probs=True)

@@ -54,7 +54,7 @@ CONFIGS = [
 def sim_dir(tmp_path_factory):
     d = tmp_path_factory.mktemp("golden")
     sys.path.insert(0, str(REPO))
-    from ngsf_hmm_tpu.tools.simulate import simulate
+    from ngsf_hmm.tools.simulate import simulate
 
     simulate(
         n_ind=N_IND,
@@ -83,7 +83,7 @@ def run_ref(binary, workdir, args, out):
 
 
 def run_ours(workdir, args, out):
-    from ngsf_hmm_tpu.cli import main
+    from ngsf_hmm.cli import main
     import contextlib
     import io
     import os
@@ -129,24 +129,24 @@ def _read_ibd(path, n_ind=N_IND):
 def test_golden_config(name, geno, cfg, sim_dir, reference_binary):
     args = f"{COMMON} {geno} {cfg}"
     run_ref(reference_binary, sim_dir, args, f"ref.{name}")
-    run_ours(sim_dir, args, f"tpu.{name}")
+    run_ours(sim_dir, args, f"ours.{name}")
 
     ref_ind = sim_dir / f"ref.{name}.indF"
-    tpu_ind = sim_dir / f"tpu.{name}.indF"
+    ours_ind = sim_dir / f"ours.{name}.indF"
     fully_fixed = name.startswith("FIXED")
 
     if fully_fixed:
-        assert ref_ind.read_bytes() == tpu_ind.read_bytes(), ".indF not byte-identical"
+        assert ref_ind.read_bytes() == ours_ind.read_bytes(), ".indF not byte-identical"
         assert (sim_dir / f"ref.{name}.ibd").read_bytes() == (
-            sim_dir / f"tpu.{name}.ibd"
+            sim_dir / f"ours.{name}.ibd"
         ).read_bytes(), ".ibd not byte-identical"
         a = np.fromfile(sim_dir / f"ref.{name}.geno")
-        b = np.fromfile(sim_dir / f"tpu.{name}.geno")
+        b = np.fromfile(sim_dir / f"ours.{name}.geno")
         np.testing.assert_allclose(a, b, atol=1e-12)
         return
 
     tot_r, F_r, al_r, fr_r = _read_indf(ref_ind)
-    tot_t, F_t, al_t, fr_t = _read_indf(tpu_ind)
+    tot_t, F_t, al_t, fr_t = _read_indf(ours_ind)
     assert tot_t == pytest.approx(tot_r, rel=1e-4)
     np.testing.assert_allclose(F_t, F_r, atol=2e-3)
     both = ~np.isnan(al_r) & ~np.isnan(al_t)
@@ -158,7 +158,7 @@ def test_golden_config(name, geno, cfg, sim_dir, reference_binary):
     np.testing.assert_allclose(fr_t, fr_r, atol=1e-3)
 
     lkl_r, paths_r, post_r = _read_ibd(sim_dir / f"ref.{name}.ibd")
-    lkl_t, paths_t, post_t = _read_ibd(sim_dir / f"tpu.{name}.ibd")
+    lkl_t, paths_t, post_t = _read_ibd(sim_dir / f"ours.{name}.ibd")
     np.testing.assert_allclose(lkl_t, lkl_r, rtol=1e-4)
     mism = sum(
         sum(a != b for a, b in zip(pr, pt)) for pr, pt in zip(paths_r, paths_t)
@@ -167,7 +167,7 @@ def test_golden_config(name, geno, cfg, sim_dir, reference_binary):
     np.testing.assert_allclose(post_t, post_r, atol=2e-3)
 
     a = np.fromfile(sim_dir / f"ref.{name}.geno")
-    b = np.fromfile(sim_dir / f"tpu.{name}.geno")
+    b = np.fromfile(sim_dir / f"ours.{name}.geno")
     np.testing.assert_allclose(b, a, atol=5e-3)
 
 
@@ -188,8 +188,8 @@ def test_seeded_random_init_parity(sim_dir, reference_binary):
     ]
     ref_freqs = np.array([float(x) for x in lines[i0 + 1 + N_IND].split()])
 
-    from ngsf_hmm_tpu.io.gsl_rng import GslTaus
-    from ngsf_hmm_tpu.io.init import init_freq, init_indF_alpha
+    from ngsf_hmm.io.gsl_rng import GslTaus
+    from ngsf_hmm.io.init import init_freq, init_indF_alpha
 
     rng = GslTaus(91)
     indF, alpha = init_indF_alpha("r", N_IND, rng)
@@ -234,13 +234,13 @@ def test_golden_beagle_fixed(beagle_file, sim_dir, reference_binary):
     """Byte parity on the fully-fixed config read from Beagle text."""
     args = f"{COMMON} --geno {beagle_file} --lkl --pos sim.pos.gz {_IDS['FIXED']}"
     run_ref(reference_binary, sim_dir, args, "ref.beagle_FIXED")
-    run_ours(sim_dir, args, "tpu.beagle_FIXED")
+    run_ours(sim_dir, args, "ours.beagle_FIXED")
     for ext in (".indF", ".ibd"):
         assert (sim_dir / f"ref.beagle_FIXED{ext}").read_bytes() == (
-            sim_dir / f"tpu.beagle_FIXED{ext}"
+            sim_dir / f"ours.beagle_FIXED{ext}"
         ).read_bytes(), f"{ext} not byte-identical (beagle input)"
     a = np.fromfile(sim_dir / "ref.beagle_FIXED.geno")
-    b = np.fromfile(sim_dir / "tpu.beagle_FIXED.geno")
+    b = np.fromfile(sim_dir / "ours.beagle_FIXED.geno")
     np.testing.assert_allclose(b, a, atol=1e-12)
 
 
@@ -249,9 +249,9 @@ def test_golden_beagle_estimated(beagle_file, sim_dir, reference_binary):
     same text, so the input quantisation cancels)."""
     args = f"{COMMON} --geno {beagle_file} --lkl --pos sim.pos.gz {_IDS['BEST']}"
     run_ref(reference_binary, sim_dir, args, "ref.beagle_BEST")
-    run_ours(sim_dir, args, "tpu.beagle_BEST")
+    run_ours(sim_dir, args, "ours.beagle_BEST")
     tot_r, F_r, al_r, fr_r = _read_indf(sim_dir / "ref.beagle_BEST.indF")
-    tot_t, F_t, al_t, fr_t = _read_indf(sim_dir / "tpu.beagle_BEST.indF")
+    tot_t, F_t, al_t, fr_t = _read_indf(sim_dir / "ours.beagle_BEST.indF")
     assert tot_t == pytest.approx(tot_r, rel=1e-4)
     np.testing.assert_allclose(F_t, F_r, atol=2e-3)
     np.testing.assert_allclose(fr_t, fr_r, atol=1e-3)
@@ -278,13 +278,13 @@ def test_golden_compat_byte_identical(ident, typ, sim_dir, reference_binary):
     ref_out = f"ref.{ident}_{typ}"
     if not (sim_dir / f"{ref_out}.indF").exists():
         run_ref(reference_binary, sim_dir, args, ref_out)
-    run_ours(sim_dir, args + " --opt compat", f"tpu.compat_{ident}_{typ}")
+    run_ours(sim_dir, args + " --opt compat", f"ours.compat_{ident}_{typ}")
     for ext in (".indF", ".ibd"):
         assert (sim_dir / f"{ref_out}{ext}").read_bytes() == (
-            sim_dir / f"tpu.compat_{ident}_{typ}{ext}"
+            sim_dir / f"ours.compat_{ident}_{typ}{ext}"
         ).read_bytes(), f"{ext} not byte-identical under --opt compat"
     a = np.fromfile(sim_dir / f"{ref_out}.geno")
-    b = np.fromfile(sim_dir / f"tpu.compat_{ident}_{typ}.geno")
+    b = np.fromfile(sim_dir / f"ours.compat_{ident}_{typ}.geno")
     np.testing.assert_array_equal(b, a)
 
 
@@ -297,13 +297,13 @@ def test_golden_compat_log_dumps(sim_dir, reference_binary):
     args = (f"{COMMON} --geno sim.glf.gz --loglkl --pos sim.pos.gz "
             f"{_IDS['BEST']} --log 1")
     run_ref(reference_binary, sim_dir, args, "ref.compat_log1")
-    run_ours(sim_dir, args + " --opt compat", "tpu.compat_log1")
+    run_ours(sim_dir, args + " --opt compat", "ours.compat_log1")
     for ext in (".indF", ".ibd"):
         assert (sim_dir / f"ref.compat_log1{ext}").read_bytes() == (
-            sim_dir / f"tpu.compat_log1{ext}"
+            sim_dir / f"ours.compat_log1{ext}"
         ).read_bytes(), f"{ext} not byte-identical (--opt compat --log 1)"
     a = np.fromfile(sim_dir / "ref.compat_log1.geno")
-    b = np.fromfile(sim_dir / "tpu.compat_log1.geno")
+    b = np.fromfile(sim_dir / "ours.compat_log1.geno")
     np.testing.assert_array_equal(b, a)
 
 
@@ -320,13 +320,13 @@ def test_golden_compat_10k(sim10k_dir, reference_binary):
         f"--geno sim.glf.gz --loglkl --pos sim.pos.gz {_IDS['BEST']}"
     )
     run_ref(reference_binary, sim10k_dir, args, "ref.compat10k")
-    run_ours(sim10k_dir, args + " --opt compat", "tpu.compat10k")
+    run_ours(sim10k_dir, args + " --opt compat", "ours.compat10k")
     for ext in (".indF", ".ibd"):
         assert (sim10k_dir / f"ref.compat10k{ext}").read_bytes() == (
-            sim10k_dir / f"tpu.compat10k{ext}"
+            sim10k_dir / f"ours.compat10k{ext}"
         ).read_bytes(), f"{ext} not byte-identical at 10x10k under compat"
     a = np.fromfile(sim10k_dir / "ref.compat10k.geno")
-    b = np.fromfile(sim10k_dir / "tpu.compat10k.geno")
+    b = np.fromfile(sim10k_dir / "ours.compat10k.geno")
     np.testing.assert_array_equal(b, a)
 
 
@@ -338,13 +338,13 @@ def test_compat_flag_misuse_errors(extra, sim_dir):
     """--opt compat off the single-run f64 scan path must HARD-ERROR, never
     silently run the speed tier (round-4 VERDICT Missing #2): a parity flag
     that silently degrades is worse than one that errors."""
-    from ngsf_hmm_tpu.cli import main
+    from ngsf_hmm.cli import main
     import contextlib
     import io
     import os
 
     args = (f"{COMMON} --geno sim.glf.gz --loglkl --pos sim.pos.gz "
-            f"{_IDS['BEST']} --opt compat {extra} --out tpu.misuse").split()
+            f"{_IDS['BEST']} --opt compat {extra} --out ours.misuse").split()
     cwd = os.getcwd()
     buf_e = io.StringIO()
     try:
@@ -357,7 +357,7 @@ def test_compat_flag_misuse_errors(extra, sim_dir):
         os.chdir(cwd)
     assert exc.value.code == 1
     assert "--opt compat requires" in buf_e.getvalue()
-    assert not (sim_dir / "tpu.misuse.indF").exists()
+    assert not (sim_dir / "ours.misuse.indF").exists()
 
 
 # ---------------------------------------------------------------------------
@@ -382,7 +382,7 @@ COMMON_MC = (
 def sim_multichr_dir(tmp_path_factory):
     d = tmp_path_factory.mktemp("golden_mc")
     sys.path.insert(0, str(REPO))
-    from ngsf_hmm_tpu.tools.simulate import simulate
+    from ngsf_hmm.tools.simulate import simulate
 
     simulate(
         n_ind=N_IND, n_sites=N_SITES_MC, freq="0.2", site_pos="r",
@@ -412,13 +412,13 @@ def test_golden_multichr_fixed(sim_multichr_dir, reference_binary):
     args = (f"{COMMON_MC} --geno sim.glf.gz --loglkl --pos sim.pos.gz "
             f"{_IDS['FIXED']}")
     run_ref(reference_binary, d, args, "ref.mc_FIXED")
-    run_ours(d, args, "tpu.mc_FIXED")
+    run_ours(d, args, "ours.mc_FIXED")
     for ext in (".indF", ".ibd"):
         assert (d / f"ref.mc_FIXED{ext}").read_bytes() == (
-            d / f"tpu.mc_FIXED{ext}"
+            d / f"ours.mc_FIXED{ext}"
         ).read_bytes(), f"{ext} not byte-identical (multi-chr)"
     a = np.fromfile(d / "ref.mc_FIXED.geno")
-    b = np.fromfile(d / "tpu.mc_FIXED.geno")
+    b = np.fromfile(d / "ours.mc_FIXED.geno")
     np.testing.assert_allclose(b, a, atol=1e-12)
 
 
@@ -429,14 +429,14 @@ def test_golden_multichr_estimated(sim_multichr_dir, reference_binary):
     args = (f"{COMMON_MC} --geno sim.glf.gz --loglkl --pos sim.pos.gz "
             f"{_IDS['BEST']}")
     run_ref(reference_binary, d, args, "ref.mc_BEST")
-    run_ours(d, args, "tpu.mc_BEST")
+    run_ours(d, args, "ours.mc_BEST")
     tot_r, F_r, al_r, fr_r = _read_indf(d / "ref.mc_BEST.indF")
-    tot_t, F_t, al_t, fr_t = _read_indf(d / "tpu.mc_BEST.indF")
+    tot_t, F_t, al_t, fr_t = _read_indf(d / "ours.mc_BEST.indF")
     assert tot_t == pytest.approx(tot_r, rel=1e-4)
     np.testing.assert_allclose(F_t, F_r, atol=2e-3)
     np.testing.assert_allclose(fr_t, fr_r, atol=1e-3)
     lkl_r, paths_r, post_r = _read_ibd(d / "ref.mc_BEST.ibd")
-    lkl_t, paths_t, post_t = _read_ibd(d / "tpu.mc_BEST.ibd")
+    lkl_t, paths_t, post_t = _read_ibd(d / "ours.mc_BEST.ibd")
     np.testing.assert_allclose(lkl_t, lkl_r, rtol=1e-4)
     mism = sum(
         sum(a != b for a, b in zip(pr, pt))
@@ -455,14 +455,14 @@ def test_golden_multichr_streamed(sim_multichr_dir, reference_binary):
             f"{_IDS['BEST']}")
     if not (d / "ref.mc_BEST.indF").exists():
         run_ref(reference_binary, d, base, "ref.mc_BEST")
-    run_ours(d, base + " --stream_chunk 250", "tpu.mc_stream")
+    run_ours(d, base + " --stream_chunk 250", "ours.mc_stream")
     tot_r, F_r, al_r, fr_r = _read_indf(d / "ref.mc_BEST.indF")
-    tot_t, F_t, al_t, fr_t = _read_indf(d / "tpu.mc_stream.indF")
+    tot_t, F_t, al_t, fr_t = _read_indf(d / "ours.mc_stream.indF")
     assert tot_t == pytest.approx(tot_r, rel=1e-4)
     np.testing.assert_allclose(F_t, F_r, atol=2e-3)
     np.testing.assert_allclose(fr_t, fr_r, atol=1e-3)
     lkl_r, paths_r, post_r = _read_ibd(d / "ref.mc_BEST.ibd")
-    lkl_t, paths_t, post_t = _read_ibd(d / "tpu.mc_stream.ibd")
+    lkl_t, paths_t, post_t = _read_ibd(d / "ours.mc_stream.ibd")
     np.testing.assert_allclose(lkl_t, lkl_r, rtol=1e-4)
     mism = sum(
         sum(a != b for a, b in zip(pr, pt))
@@ -495,9 +495,9 @@ def test_golden_multichr_beagle(sim_multichr_dir, reference_binary):
     args = (f"{COMMON_MC} --geno sim.beagle.gz --lkl --pos sim.pos.gz "
             f"{_IDS['BEST']}")
     run_ref(reference_binary, d, args, "ref.mc_beagle")
-    run_ours(d, args, "tpu.mc_beagle")
+    run_ours(d, args, "ours.mc_beagle")
     tot_r, F_r, al_r, fr_r = _read_indf(d / "ref.mc_beagle.indF")
-    tot_t, F_t, al_t, fr_t = _read_indf(d / "tpu.mc_beagle.indF")
+    tot_t, F_t, al_t, fr_t = _read_indf(d / "ours.mc_beagle.indF")
     assert tot_t == pytest.approx(tot_r, rel=1e-4)
     np.testing.assert_allclose(F_t, F_r, atol=2e-3)
     np.testing.assert_allclose(fr_t, fr_r, atol=1e-3)
@@ -517,7 +517,7 @@ N_SITES_10K = 10_000
 def sim10k_dir(tmp_path_factory):
     d = tmp_path_factory.mktemp("golden10k")
     sys.path.insert(0, str(REPO))
-    from ngsf_hmm_tpu.tools.simulate import simulate
+    from ngsf_hmm.tools.simulate import simulate
 
     simulate(
         n_ind=N_IND_10K,
@@ -563,13 +563,13 @@ def test_golden_10k_estimated(name, geno, cfg, sim10k_dir,
         f"{geno} --pos sim.pos.gz {cfg}"
     )
     run_ref(reference_binary, sim10k_dir, args, f"ref.e10k_{name}")
-    run_ours(sim10k_dir, args + " --kernel blocked", f"tpu.e10k_{name}")
+    run_ours(sim10k_dir, args + " --kernel blocked", f"ours.e10k_{name}")
 
     tot_r, F_r, al_r, fr_r = _read_indf(
         sim10k_dir / f"ref.e10k_{name}.indF", n_ind=N_IND_10K
     )
     tot_t, F_t, al_t, fr_t = _read_indf(
-        sim10k_dir / f"tpu.e10k_{name}.indF", n_ind=N_IND_10K
+        sim10k_dir / f"ours.e10k_{name}.indF", n_ind=N_IND_10K
     )
     # gates a notch looser than the 6x500 matrix (1e-4 / 2e-3 / 3e-2):
     # at a HARD 20-iteration cap the runs stop mid-convergence, so
@@ -605,7 +605,7 @@ def test_golden_10k_estimated(name, geno, cfg, sim10k_dir,
         sim10k_dir / f"ref.e10k_{name}.ibd", n_ind=N_IND_10K
     )
     lkl_t, paths_t, post_t = _read_ibd(
-        sim10k_dir / f"tpu.e10k_{name}.ibd", n_ind=N_IND_10K
+        sim10k_dir / f"ours.e10k_{name}.ibd", n_ind=N_IND_10K
     )
     np.testing.assert_allclose(lkl_t, lkl_r, rtol=1e-2 if laggy else 5e-4)
     mism = sum(
@@ -631,10 +631,10 @@ def test_golden_10k_converged_total(sim10k_dir, reference_binary):
         "--freq 0.1 --indF 0.5,0.01 --indF_fixed"
     )
     run_ref(reference_binary, sim10k_dir, args, "ref.conv")
-    run_ours(sim10k_dir, args + " --kernel blocked", "tpu.conv")
+    run_ours(sim10k_dir, args + " --kernel blocked", "ours.conv")
     tot_r, _, _, fr_r = _read_indf(sim10k_dir / "ref.conv.indF",
                                    n_ind=N_IND_10K)
-    tot_t, _, _, fr_t = _read_indf(sim10k_dir / "tpu.conv.indF",
+    tot_t, _, _, fr_t = _read_indf(sim10k_dir / "ours.conv.indF",
                                    n_ind=N_IND_10K)
     assert tot_t == pytest.approx(tot_r, rel=1e-6)
     np.testing.assert_allclose(fr_t, fr_r, atol=1e-4)
@@ -654,7 +654,7 @@ def test_golden_20ind_binary_gl(tmp_path_factory, reference_binary):
 
     d = tmp_path_factory.mktemp("golden20bin")
     _sys.path.insert(0, str(REPO))
-    from ngsf_hmm_tpu.tools.simulate import simulate
+    from ngsf_hmm.tools.simulate import simulate
 
     simulate(n_ind=N_IND_BIN, n_sites=N_SITES_10K, freq="0.2",
              site_pos="r", indF="0.4", alpha="0.02", depth="2",
@@ -678,12 +678,12 @@ def test_golden_20ind_binary_gl(tmp_path_factory, reference_binary):
             f"--freq 0.2 --indF 0.3,0.05"
         )
         run_ref(reference_binary, d, args, f"ref.bin_{tag}")
-        run_ours(d, args + " --kernel blocked", f"tpu.bin_{tag}")
+        run_ours(d, args + " --kernel blocked", f"ours.bin_{tag}")
         tot_r, F_r, al_r, fr_r = _read_indf(
             d / f"ref.bin_{tag}.indF", n_ind=N_IND_BIN
         )
         tot_t, F_t, al_t, fr_t = _read_indf(
-            d / f"tpu.bin_{tag}.indF", n_ind=N_IND_BIN
+            d / f"ours.bin_{tag}.indF", n_ind=N_IND_BIN
         )
         assert tot_t == pytest.approx(tot_r, rel=1e-4), tag
         np.testing.assert_allclose(F_t, F_r, atol=2e-3, err_msg=tag)
@@ -704,13 +704,13 @@ def test_golden_10k_fixed(typ, sim10k_dir, reference_binary):
         f"{geno} --pos sim.pos.gz {_IDS['FIXED']}"
     )
     run_ref(reference_binary, sim10k_dir, args, f"ref.10k_{typ}")
-    run_ours(sim10k_dir, args, f"tpu.10k_{typ}")
+    run_ours(sim10k_dir, args, f"ours.10k_{typ}")
     for ext in (".indF", ".ibd"):
         assert (sim10k_dir / f"ref.10k_{typ}{ext}").read_bytes() == (
-            sim10k_dir / f"tpu.10k_{typ}{ext}"
+            sim10k_dir / f"ours.10k_{typ}{ext}"
         ).read_bytes(), f"{ext} not byte-identical at 10x10k"
     a = np.fromfile(sim10k_dir / f"ref.10k_{typ}.geno")
-    b = np.fromfile(sim10k_dir / f"tpu.10k_{typ}.geno")
+    b = np.fromfile(sim10k_dir / f"ours.10k_{typ}.geno")
     np.testing.assert_allclose(b, a, atol=1e-12)
 
 
@@ -723,10 +723,10 @@ def test_golden_log_dumps(sim_dir, reference_binary):
         f"{_IDS['FIXED']} --log 1"
     )
     run_ref(reference_binary, sim_dir, args, "ref.log1")
-    run_ours(sim_dir, args, "tpu.log1")
+    run_ours(sim_dir, args, "ours.log1")
     for ext in (".indF", ".ibd"):
         assert (sim_dir / f"ref.log1{ext}").read_bytes() == (
-            sim_dir / f"tpu.log1{ext}"
+            sim_dir / f"ours.log1{ext}"
         ).read_bytes(), f"{ext} not byte-identical with --log 1"
 
 
@@ -740,11 +740,11 @@ def test_golden_max_iters_warning(sim_dir, reference_binary):
         f"--min_epsilon 1e-15"
     )
     out_r = run_ref(reference_binary, sim_dir, args, "ref.warn")
-    out_t = run_ours(sim_dir, args, "tpu.warn")
+    out_t = run_ours(sim_dir, args, "ours.warn")
     warn = "WARN: Maximum number of iterations reached!"
     assert warn in out_r
     assert warn in out_t
     tot_r, F_r, _, _ = _read_indf(sim_dir / "ref.warn.indF")
-    tot_t, F_t, _, _ = _read_indf(sim_dir / "tpu.warn.indF")
+    tot_t, F_t, _, _ = _read_indf(sim_dir / "ours.warn.indF")
     assert tot_t == pytest.approx(tot_r, rel=1e-4)
     np.testing.assert_allclose(F_t, F_r, atol=2e-3)

@@ -22,7 +22,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from ngsf_hmm_tpu.io.gsl_rng import GslTaus
+from ngsf_hmm.io.gsl_rng import GslTaus
 
 REPO = Path(__file__).resolve().parent.parent
 

@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import pytest
 
 import oracle
-from ngsf_hmm_tpu.models.hmm import (
+from ngsf_hmm.models.hmm import (
     forward,
     forward_loglik,
     loglik_value_and_grad,

@@ -15,12 +15,12 @@ import jax.numpy as jnp
 import pytest
 
 import oracle
-from ngsf_hmm_tpu.models.hmm import (
+from ngsf_hmm.models.hmm import (
     forward_loglik,
     loglik_value_and_grad,
     posteriors,
 )
-from ngsf_hmm_tpu.models.hmm_blocked import (
+from ngsf_hmm.models.hmm_blocked import (
     block_sites,
     forward_loglik_blocked,
     forward_loglik_blocked_lin,
@@ -156,7 +156,7 @@ def test_linear_float32_large_magnitude():
 
 def test_linear_em_iteration_matches_log():
     """Full EM iterations in linear mode track the f64 log-mode trajectory."""
-    from ngsf_hmm_tpu.models.em import em_iteration, init_state
+    from ngsf_hmm.models.em import em_iteration, init_state
 
     S, N = 500, 5
     gl, freq, dist, F, alpha, e = oracle.random_case(RNG, S=S, N=N)

@@ -1,96 +1,47 @@
-"""Pallas HMM kernels vs the f64 sequential oracle kernels.
+"""The Triton tier inside the EM engine: full iterations, run_em's
+deferred state fields, and the one place that picks the chain tier.
 
-Run in interpreter mode on CPU CI (identical kernel code paths to TPU);
-f32 tolerances as in the blocked-linear tests."""
+Kernels run in the Pallas interpreter on the CPU (the same kernel code
+the GPU compiles through Triton); f32 tolerances as in the
+blocked-linear tests."""
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
 import oracle
-from ngsf_hmm_tpu.models.hmm import (
-    forward_loglik,
-    loglik_value_and_grad,
-    posteriors,
-)
-from ngsf_hmm_tpu.models.hmm_pallas import (
-    forward_loglik_pallas,
-    loglik_value_and_grad_pallas,
-    pick_block_size,
-    posteriors_pallas,
-    prepare_inputs,
-)
-
-RNG = np.random.default_rng(21)
+from ngsf_hmm.models.em import resolve_numerics
 
 
-def _case(S, N, br=0):
-    gl, freq, dist, F, alpha, e = oracle.random_case(
-        RNG, S=S, N=N, chrom_break_every=br
-    )
-    return (jnp.asarray(e), jnp.asarray(dist), jnp.asarray(F),
-            jnp.asarray(alpha))
-
-
-@pytest.mark.parametrize("S,N,bs,br", [
-    (61, 4, 8, 17), (128, 8, 16, 0), (333, 5, 64, 101), (40, 3, 40, 0),
+@pytest.mark.parametrize("kw,tier", [
+    (dict(), "pallas"),
+    (dict(freq_est=0), "pallas"),
+    (dict(e_prob_calc=2), "linear"),
+    (dict(freq_est=2), "linear"),
+    (dict(replicates=True), "linear"),
+    (dict(site_mesh=True), "linear"),
+    (dict(mesh_stream=True), "linear"),
 ])
-def test_pallas_loglik_matches(S, N, bs, br):
-    e, dist, F, alpha = _case(S, N, br)
-    prep = prepare_inputs(e, dist, bs=bs)
-    ll_p = forward_loglik_pallas(F[None], alpha[None], prep)[0]
-    ll_s = forward_loglik(F, alpha, e, dist)
-    np.testing.assert_allclose(np.asarray(ll_p), np.asarray(ll_s), rtol=2e-6)
+def test_resolve_numerics_routes(kw, tier):
+    """--kernel pallas keeps the Triton tier only where the GL-fused
+    kernels apply; LD emissions, replicates, site meshes and mesh
+    streams take the XLA blocked-linear tier, with a note saying so."""
+    got, note = resolve_numerics("pallas", **kw)
+    assert got == tier
+    assert ("Triton GL-fused" in note) == (tier == "pallas")
+    assert ("blocked-linear" in note) == (tier == "linear")
 
 
-def test_pallas_loglik_candidate_batch():
-    """B>1 rows must equal independent single evaluations."""
-    e, dist, F, alpha = _case(77, 4, 13)
-    prep = prepare_inputs(e, dist, bs=16)
-    Fs = jnp.stack([F, F * 0.7, jnp.clip(F * 1.2, 0, 0.99)])
-    As = jnp.stack([alpha, alpha * 2.0, alpha * 0.5])
-    ll_b = forward_loglik_pallas(Fs, As, prep)
-    for k in range(3):
-        ll_1 = forward_loglik_pallas(Fs[k][None], As[k][None], prep)[0]
-        np.testing.assert_allclose(np.asarray(ll_b[k]), np.asarray(ll_1),
-                                   rtol=1e-6)
-        ll_s = forward_loglik(Fs[k].astype(jnp.float64),
-                              As[k].astype(jnp.float64), e, dist)
-        np.testing.assert_allclose(np.asarray(ll_b[k]), np.asarray(ll_s),
-                                   rtol=2e-6)
-
-
-@pytest.mark.parametrize("S,N,bs,br", [(61, 4, 8, 17), (200, 6, 32, 47)])
-def test_pallas_value_and_grad_matches(S, N, bs, br):
-    e, dist, F, alpha = _case(S, N, br)
-    prep = prepare_inputs(e, dist, bs=bs)
-    L_p, gF_p, ga_p = loglik_value_and_grad_pallas(F, alpha, prep)
-    L_s, gF_s, ga_s = loglik_value_and_grad(F, alpha, e, dist)
-    np.testing.assert_allclose(np.asarray(L_p), np.asarray(L_s), rtol=2e-6)
-    np.testing.assert_allclose(np.asarray(gF_p), np.asarray(gF_s), rtol=2e-3)
-    np.testing.assert_allclose(np.asarray(ga_p), np.asarray(ga_s), rtol=2e-3)
-
-
-@pytest.mark.parametrize("S,N,bs,br", [(61, 4, 8, 17), (150, 5, 50, 0)])
-def test_pallas_posteriors_match(S, N, bs, br):
-    e, dist, F, alpha = _case(S, N, br)
-    prep = prepare_inputs(e, dist, bs=bs)
-    p_p, llf_p, llb_p = posteriors_pallas(F, alpha, prep)
-    p_s, llf_s, llb_s = posteriors(e, dist, F, alpha)
-    np.testing.assert_allclose(np.asarray(p_p), np.asarray(p_s), atol=2e-5)
-    np.testing.assert_allclose(np.asarray(llf_p), np.asarray(llf_s), rtol=2e-6)
-    np.testing.assert_allclose(np.asarray(llb_p), np.asarray(llb_s), rtol=2e-6)
-
-
-def test_pick_block_size():
-    assert pick_block_size(100_000) >= 256
-    assert pick_block_size(10) == 10
+@pytest.mark.parametrize("numerics", ["log", "linear"])
+def test_resolve_numerics_leaves_xla_tiers(numerics):
+    assert resolve_numerics(numerics, e_prob_calc=2, replicates=True,
+                            site_mesh=True) == (numerics, None)
 
 
 def test_pallas_em_iteration_matches_log():
     """Full EM iterations in pallas mode track the f64 log-mode
     trajectory (f32 kernel tolerances)."""
-    from ngsf_hmm_tpu.models.em import em_iteration, init_state
+    from ngsf_hmm.models.em import em_iteration, init_state
 
     # Own RNG: the module-level RNG's state depends on which tests ran
     # before, and this test's tolerances are trajectory- (not kernel-)
@@ -140,7 +91,7 @@ def test_run_em_deferred_emissions_match_manual_loop():
     materialisation (write-only inside the loop) and rebuilds it at
     exit; the result must equal the undeferred iteration-by-iteration
     trajectory, and checkpoint callbacks must see a LIVE e_prob."""
-    from ngsf_hmm_tpu.models.em import (
+    from ngsf_hmm.models.em import (
         EMOptions, em_iteration, init_state, run_em,
     )
 
@@ -163,17 +114,12 @@ def test_run_em_deferred_emissions_match_manual_loop():
     res = run_em(gl_j, dist_j, st0, opts, checkpoint_cb=cb)
 
     # mirror run_em's step exactly (slab threading + warm M-step
-    # memory + the pallas est_maf tiles it builds at N < 32) minus the
-    # deferral
-    from ngsf_hmm_tpu.ops.maf_pallas import prepare_gl_tiles
-
-    tiles = prepare_gl_tiles(jnp.exp(gl_j))
+    # memory) minus the deferral
     st, slabs, mem = st0, None, None
     for _ in range(3):
         st, _, slabs, mem = em_iteration(
             gl_j, dist_j, st, numerics="pallas", prep_slabs=slabs,
-            gl_tiles=tiles, return_prep=True, opt_memory=mem,
-            return_opt=True,
+            return_prep=True, opt_memory=mem, return_opt=True,
         )
 
     np.testing.assert_array_equal(np.asarray(res.state.freq),
@@ -188,22 +134,18 @@ def test_run_em_deferred_emissions_match_manual_loop():
 
 
 def test_run_em_deferred_posteriors_match_manual_loop():
-    """run_em's slab-route loop ALSO defers the per-iteration [S, N]
-    p_ibd unpack (the slab est_maf consumes the raw posterior slab, so
-    the unpacked posterior is write-only in-loop; round-5) and rebuilds
-    it at exit from the final iteration's PRE-update params; the result
-    must equal the undeferred trajectory bit-for-bit, and checkpoint
+    """With freq_est 0 run_em's fused loop ALSO defers the
+    per-iteration [S, N] p_ibd unpack (nothing in the loop reads it) and
+    rebuilds it at exit from the final iteration's PRE-update params;
+    the result must equal the undeferred trajectory, and checkpoint
     callbacks must see a LIVE, snapped p_ibd."""
-    from ngsf_hmm_tpu.models.em import (
+    from ngsf_hmm.models.em import (
         EMOptions, em_iteration, init_state, run_em,
     )
-    from ngsf_hmm_tpu.ops.maf import macro_schedule
-    from ngsf_hmm_tpu.ops.maf_pallas import slab_geom_ok
 
     rng = np.random.default_rng(413)
-    S, N = 260, 40  # N >= 32: the slab est_maf route engages
+    S, N = 260, 40
     gl, freq, dist, F, alpha, e = oracle.random_case(rng, S=S, N=N)
-    assert macro_schedule(N) is not None and slab_geom_ok(S, N)
     gl_j = jnp.asarray(np.transpose(gl, (1, 0, 2)), jnp.float32)
     dist_j = jnp.asarray(dist, jnp.float32)
     st0 = init_state(gl_j, jnp.asarray(freq, jnp.float32),
@@ -215,16 +157,17 @@ def test_run_em_deferred_posteriors_match_manual_loop():
     def cb(n_iter, st, bkd):
         seen[n_iter] = np.asarray(st.p_ibd)
 
-    opts = EMOptions(numerics="pallas", min_iters=3, max_iters=3,
-                     min_epsilon=1e-9)
+    opts = EMOptions(numerics="pallas", freq_est=0, min_iters=3,
+                     max_iters=3, min_epsilon=1e-9)
     res = run_em(gl_j, dist_j, st0, opts, checkpoint_cb=cb)
 
-    # undeferred mirror (gl_tiles=None: same slab est_maf route)
+    # undeferred mirror
     st, slabs, mem = st0, None, None
     for _ in range(3):
         st, _, slabs, mem = em_iteration(
-            gl_j, dist_j, st, numerics="pallas", prep_slabs=slabs,
-            return_prep=True, opt_memory=mem, return_opt=True,
+            gl_j, dist_j, st, freq_est=0, numerics="pallas",
+            prep_slabs=slabs, return_prep=True, opt_memory=mem,
+            return_opt=True,
         )
 
     np.testing.assert_array_equal(np.asarray(res.state.freq),

@@ -4,7 +4,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from ngsf_hmm_tpu.models.lbfgsb import lbfgsb_minimize
+from ngsf_hmm.models.lbfgsb import lbfgsb_minimize
 
 
 def test_batched_quadratics():
@@ -95,7 +95,7 @@ def test_warm_start_em_trajectory_matches_cold():
     optimizer endpoints as the cold-started loop within PGTOL-bounded
     tolerances -- the guarantee the golden gates rely on."""
     import oracle
-    from ngsf_hmm_tpu.models.em import EMOptions, init_state, run_em
+    from ngsf_hmm.models.em import EMOptions, init_state, run_em
 
     rng = np.random.default_rng(9)
     gl, freq, dist, F, alpha, e = oracle.random_case(rng, S=200, N=6)
@@ -187,8 +187,8 @@ def test_hmm_objective_improves_loglik():
     """Optimising (F, alpha) on the real forward-likelihood objective
     increases the likelihood and stays inside the reference bounds."""
     import oracle
-    from ngsf_hmm_tpu.models.hmm import forward_loglik
-    from ngsf_hmm_tpu.utils.constants import F_MIN, F_MAX, ALPHA_MIN, ALPHA_MAX
+    from ngsf_hmm.models.hmm import forward_loglik
+    from ngsf_hmm.utils.constants import F_MIN, F_MAX, ALPHA_MIN, ALPHA_MAX
 
     rng = np.random.default_rng(5)
     gl, freq, dist, F, alpha, e = oracle.random_case(rng, S=120, N=6)

@@ -14,9 +14,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from ngsf_hmm_tpu.models.em import em_iteration, init_state
-from ngsf_hmm_tpu.ops.haplo import calc_emission_ld, haplo_freq, joint_geno_prob
-from ngsf_hmm_tpu.tools.simulate import simulate
+from ngsf_hmm.models.em import em_iteration, init_state
+from ngsf_hmm.ops.haplo import calc_emission_ld, haplo_freq, joint_geno_prob
+from ngsf_hmm.tools.simulate import simulate
 
 RNG = np.random.default_rng(13)
 
@@ -103,7 +103,7 @@ def test_ld_freqs_recover_truth_on_independent_sites():
 
 
 def test_cli_ld_path(tmp_path):
-    from ngsf_hmm_tpu.cli import main
+    from ngsf_hmm.cli import main
 
     simulate(n_ind=4, n_sites=200, freq="0.2", site_pos="r", indF="0.5",
              alpha="0.01", depth="2", error=0.01, seed=31, out=str(tmp_path / "sim"))
@@ -140,8 +140,8 @@ def test_ld_init_freq_matches_est_maf_on_independent_sites():
     """Init-time --freq e under --freq_est 2 (parse_args.cpp:316-321):
     site 0 is the plain est_maf(F=0) estimate; later sites come from the
     corrected pair EM and must agree with est_maf on LD-free data."""
-    from ngsf_hmm_tpu.ops.haplo import ld_init_freq
-    from ngsf_hmm_tpu.ops.maf import est_maf
+    from ngsf_hmm.ops.haplo import ld_init_freq
+    from ngsf_hmm.ops.maf import est_maf
 
     S, N = 80, 200
     maf_true = RNG.uniform(0.1, 0.4, S)
@@ -185,7 +185,7 @@ def test_init_state_ld_emissions():
 
 def test_cli_ld_freq_e_init(tmp_path):
     """--freq e --freq_est 2 exercises the LD freq init end-to-end."""
-    from ngsf_hmm_tpu.cli import main
+    from ngsf_hmm.cli import main
 
     simulate(n_ind=4, n_sites=120, freq="0.2", site_pos="r", indF="0.4",
              alpha="0.02", depth="3", error=0.01, seed=7,

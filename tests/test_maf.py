@@ -2,9 +2,10 @@
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
 import oracle
-from ngsf_hmm_tpu.ops.maf import est_maf
+from ngsf_hmm.ops.maf import est_maf
 
 
 def test_est_maf_matches_oracle():
@@ -33,28 +34,6 @@ def test_est_maf_uniform_prior():
     gl -= np.log(np.exp(gl).sum(-1, keepdims=True))
     got = np.asarray(est_maf(jnp.asarray(gl), None))
     assert np.all(np.abs(got - geno.mean(axis=1) / 2) < 0.05)
-
-
-def test_est_maf_pallas_matches_xla():
-    """The VMEM-resident pallas fixed point must reproduce ops/maf.py
-    (same damped-accumulator trajectories, per-tile early exit only
-    freezes already-frozen lanes)."""
-    import jax.numpy as jnp
-    import numpy as np
-
-    from ngsf_hmm_tpu.ops.maf import est_maf
-    from ngsf_hmm_tpu.ops.maf_pallas import est_maf_pallas, prepare_gl_tiles
-
-    rng = np.random.default_rng(5)
-    S, N = 1100, 7  # crosses tile boundaries (TS=512) with a ragged tail
-    raw = rng.random((S, N, 3)) + 1e-4
-    gl_lin = jnp.asarray(raw / raw.sum(-1, keepdims=True), jnp.float32)
-    p_ibd = jnp.asarray(np.clip(rng.random((S, N)), 0.0, 1.0), jnp.float32)
-
-    want = est_maf(gl_lin, p_ibd, linear=True)
-    tiles = prepare_gl_tiles(gl_lin)
-    got = est_maf_pallas(tiles, p_ibd, S)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=2e-6)
 
 
 def _realistic_gls(rng, S, N, depth_mean=2.0, err=0.01):
@@ -108,25 +87,6 @@ def test_est_maf_macro_small_n_is_exact():
     np.testing.assert_array_equal(auto, exact)
 
 
-def test_est_maf_macro_pallas_matches_xla():
-    """The pallas macro kernel and the XLA macro path emulate the same
-    trajectory (identical (K0, M) schedule, f32-level agreement)."""
-    from ngsf_hmm_tpu.ops.maf_pallas import est_maf_pallas, prepare_gl_tiles
-
-    rng = np.random.default_rng(79)
-    S, N = 2100, 100  # crosses tile boundaries with a ragged tail
-    gl = _realistic_gls(rng, S, N)
-    F = rng.random((S, N)) * 0.9
-    F[5, :] = 1.0
-    gl32 = jnp.asarray(gl, jnp.float32)
-    F32 = jnp.asarray(F, jnp.float32)
-    want = np.asarray(est_maf(gl32, F32, linear=True, macro=True))
-    got = np.asarray(
-        est_maf_pallas(prepare_gl_tiles(gl32), F32, S, macro=True)
-    )
-    np.testing.assert_allclose(got, want, atol=2e-5)
-
-
 def test_est_maf_macro_sharded_matches_serial():
     """Macro-stepping under an ind-sharded mesh (psum'd jvp evaluations,
     K0 + ~6 collectives instead of ~101) equals the serial macro path."""
@@ -140,7 +100,7 @@ def test_est_maf_macro_sharded_matches_serial():
     F = jnp.asarray(rng.random((S, N)) * 0.9)
     # force the sharded run onto the SAME schedule the serial call picks
     # (shard-local width differs; the policy is documented local-width)
-    from ngsf_hmm_tpu.ops.maf import macro_schedule
+    from ngsf_hmm.ops.maf import macro_schedule
 
     sched = macro_schedule(N)
     want = est_maf(gl, F, linear=True, macro=sched)
@@ -160,60 +120,61 @@ def test_est_maf_macro_sharded_matches_serial():
     )
 
 
-def test_est_maf_pallas_het_certain_at_full_ibd():
-    """A heterozygote-certain GL at p_ibd == 1 must NOT produce NaN:
-    calc_HWE's F==1 het floor (gen_func.cpp:946-956) applies in the
-    pallas kernel too (regression: missing floor divided by zero)."""
-    import jax.numpy as jnp
-    import numpy as np
-
-    from ngsf_hmm_tpu.ops.maf import est_maf
-    from ngsf_hmm_tpu.ops.maf_pallas import est_maf_pallas, prepare_gl_tiles
-
-    S, N = 8, 3
-    gl_lin = np.full((S, N, 3), 1.0 / 3, np.float32)
-    gl_lin[2, 1] = [0.0, 1.0, 0.0]  # het-certain individual
-    p_ibd = np.zeros((S, N), np.float32)
-    p_ibd[2, :] = 1.0  # fully-IBD site
-    gl_j = jnp.asarray(gl_lin)
-    p_j = jnp.asarray(p_ibd)
-
-    want = np.asarray(est_maf(gl_j, p_j, linear=True))
-    got = np.asarray(est_maf_pallas(prepare_gl_tiles(gl_j), p_j, S))
-    assert np.isfinite(got).all()
-    np.testing.assert_allclose(got, want, atol=2e-6)
+def test_est_maf_f32_linear_matches_f64():
+    """The speed tiers' f32 linear-space fixed point reproduces the f64
+    log-space one (same damped-accumulator trajectories) across a
+    ragged site count."""
+    rng = np.random.default_rng(5)
+    S, N = 1100, 7
+    raw = rng.random((S, N, 3)) + 1e-4
+    gl_lin = raw / raw.sum(-1, keepdims=True)
+    p_ibd = rng.random((S, N))
+    want = np.asarray(est_maf(jnp.asarray(np.log(gl_lin)),
+                              jnp.asarray(p_ibd)))
+    got = np.asarray(est_maf(jnp.asarray(gl_lin, jnp.float32),
+                             jnp.asarray(p_ibd, jnp.float32), linear=True))
+    np.testing.assert_allclose(got, want, atol=2e-5)
 
 
-def test_est_maf_slab_matches_xla():
-    """The v2 slab-layout est_maf kernel (gl slabs + raw posterior slab,
-    no relayouts) emulates the same macro trajectory as the XLA macro
-    path: pad individuals masked in the planes, ragged site tails
-    sentinel'd, het floor honoured."""
-    from ngsf_hmm_tpu.models.hmm_pallas import (
-        prepare_gl_inputs, pack_sites2,
-    )
-    from ngsf_hmm_tpu.ops.maf_pallas import est_maf_slab, slab_geom_ok
-
+@pytest.mark.parametrize("S,N", [(2100, 100), (1536, 96)])
+def test_est_maf_macro_f32_drift(S, N):
+    """In f32 (the speed tiers' dtype) macro-stepping tracks the exact
+    damped iterate to <= 1e-4, het-floor row included."""
     rng = np.random.default_rng(91)
-    for S, N in ((2100, 100), (1536, 96)):
-        gl = _realistic_gls(rng, S, N)
-        F = rng.random((S, N)) * 0.9
-        F[5, :] = 1.0  # het-floor row
-        gl32 = jnp.asarray(gl, jnp.float32)
-        F32 = jnp.asarray(F, jnp.float32)
-        assert slab_geom_ok(S, N)
-        prep2 = prepare_gl_inputs(gl32, jnp.zeros(S))
-        p_slab = pack_sites2(F32, prep2)
-        want = np.asarray(est_maf(gl32, F32, linear=True, macro=True))
-        got = np.asarray(est_maf_slab(prep2, p_slab, macro=True))
-        np.testing.assert_allclose(got, want, atol=2e-5)
+    gl = jnp.asarray(_realistic_gls(rng, S, N), jnp.float32)
+    F = rng.random((S, N)) * 0.9
+    F[5, :] = 1.0  # het-floor row
+    F = jnp.asarray(F, jnp.float32)
+    exact = np.asarray(est_maf(gl, F, linear=True))
+    fast = np.asarray(est_maf(gl, F, linear=True, macro=True))
+    assert np.isfinite(fast).all()
+    assert np.abs(exact - fast).max() <= 1e-4
 
 
-def test_em_iteration_slab_route_wiring():
-    """em_iteration's v2 slab est_maf route (numerics='pallas', N >= 32,
-    fused kernels) produces the same freq the XLA macro path would from
-    the iteration's own posterior."""
-    from ngsf_hmm_tpu.models.em import em_iteration, init_state
+@pytest.mark.parametrize("macro", [False, True])
+def test_est_maf_het_certain_at_full_ibd(macro):
+    """A heterozygote-certain GL at p_ibd == 1 must NOT produce NaN:
+    calc_HWE's F==1 het floor (gen_func.cpp:946-956) applies on the
+    linear f32 path as on the f64 log path."""
+    S, N = 8, 40 if macro else 3  # macro engages from 32 individuals
+    gl_lin = np.full((S, N, 3), 1.0 / 3)
+    gl_lin[2, 1] = [0.0, 1.0, 0.0]  # het-certain individual
+    p_ibd = np.zeros((S, N))
+    p_ibd[2, :] = 1.0  # fully-IBD site
+    with np.errstate(divide="ignore"):
+        want = np.asarray(est_maf(jnp.asarray(np.log(gl_lin)),
+                                  jnp.asarray(p_ibd)))
+    got = np.asarray(est_maf(jnp.asarray(gl_lin, jnp.float32),
+                             jnp.asarray(p_ibd, jnp.float32), linear=True,
+                             macro=macro))
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, atol=1e-4 if macro else 2e-6)
+
+
+def test_em_iteration_pallas_freq_is_xla_macro():
+    """em_iteration's Triton tier feeds its own posterior to the XLA
+    macro fixed point: the iteration's freq is exactly that."""
+    from ngsf_hmm.models.em import em_iteration, init_state
 
     rng = np.random.default_rng(402)
     S, N = 900, 40

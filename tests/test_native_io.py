@@ -10,7 +10,7 @@ import os
 import numpy as np
 import pytest
 
-from ngsf_hmm_tpu.io import native, readers
+from ngsf_hmm.io import native, readers
 
 
 pytestmark = pytest.mark.skipif(

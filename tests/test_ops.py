@@ -5,10 +5,10 @@ import jax.numpy as jnp
 import pytest
 
 import oracle
-from ngsf_hmm_tpu.ops.logsum import logsum2, logsum3, logsum
-from ngsf_hmm_tpu.ops.hwe import calc_hwe, post_prob, check_interv, call_geno, miss_data
-from ngsf_hmm_tpu.ops.emissions import calc_emission, log_hwe_by_state, emission_probs_linear
-from ngsf_hmm_tpu.ops.transitions import log_trans, trans, log_q
+from ngsf_hmm.ops.logsum import logsum2, logsum3, logsum
+from ngsf_hmm.ops.hwe import calc_hwe, post_prob, check_interv, call_geno, miss_data
+from ngsf_hmm.ops.emissions import calc_emission, log_hwe_by_state, emission_probs_linear
+from ngsf_hmm.ops.transitions import log_trans, trans, log_q
 
 RNG = np.random.default_rng(7)
 

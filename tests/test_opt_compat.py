@@ -18,7 +18,7 @@ import subprocess
 import numpy as np
 import pytest
 
-from ngsf_hmm_tpu.models.lbfgsb_ref import RefLBFGSB
+from ngsf_hmm.models.lbfgsb_ref import RefLBFGSB
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 REF_SRC = pathlib.Path("/root/reference")

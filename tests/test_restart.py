@@ -8,14 +8,14 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from ngsf_hmm_tpu.models.em import EMOptions, init_state, run_em
-from ngsf_hmm_tpu.models.restart import (
+from ngsf_hmm.models.em import EMOptions, init_state, run_em
+from ngsf_hmm.models.restart import (
     run_em_restarts,
     stack_restart_states,
 )
-from ngsf_hmm_tpu.io.gsl_rng import GslTaus
-from ngsf_hmm_tpu.io.init import init_freq, init_indF_alpha
-from ngsf_hmm_tpu.tools.simulate import simulate
+from ngsf_hmm.io.gsl_rng import GslTaus
+from ngsf_hmm.io.init import init_freq, init_indF_alpha
+from ngsf_hmm.tools.simulate import simulate
 
 
 @pytest.fixture(scope="module")
@@ -23,12 +23,12 @@ def sim(tmp_path_factory):
     d = tmp_path_factory.mktemp("restart")
     simulate(n_ind=4, n_sites=300, freq="0.2", site_pos="r", indF="0.5",
              alpha="0.01", depth="2", error=0.01, seed=99, out=str(d / "sim"))
-    from ngsf_hmm_tpu.io import readers
+    from ngsf_hmm.io import readers
 
     gl = readers.read_geno(str(d / "sim.glf.gz"), 4, 300, probs=True,
                            log_scale=True)
     dist = readers.read_pos_dist(str(d / "sim.pos.gz"), 300) / 1e6
-    from ngsf_hmm_tpu.ops.hwe import post_prob
+    from ngsf_hmm.ops.hwe import post_prob
 
     gl_j = post_prob(jnp.asarray(gl), None)
     return gl_j, jnp.asarray(dist)
@@ -66,7 +66,7 @@ def test_restart_cli_flag(sim, tmp_path, monkeypatch):
     import io
     import os
 
-    from ngsf_hmm_tpu.cli import main
+    from ngsf_hmm.cli import main
 
     d = tmp_path
     simulate(n_ind=4, n_sites=300, freq="0.2", site_pos="r", indF="0.5",

@@ -5,9 +5,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from ngsf_hmm_tpu.models.em import EMOptions, init_state, run_em
-from ngsf_hmm_tpu.models.restart import stack_restart_states
-from ngsf_hmm_tpu.parallel.driver import parse_mesh_spec, run_em_sharded
+from ngsf_hmm.models.em import EMOptions, init_state, run_em
+from ngsf_hmm.models.restart import stack_restart_states
+from ngsf_hmm.parallel.driver import parse_mesh_spec, run_em_sharded
 
 
 @pytest.fixture(scope="module")
@@ -143,7 +143,7 @@ def test_restart_mesh_matches_host_restarts(case):
     gl, dist, _ = case
     R = 4
     states = stack_restart_states(gl, R, seed=99)
-    from ngsf_hmm_tpu.models.restart import run_em_restarts
+    from ngsf_hmm.models.restart import run_em_restarts
 
     ref = run_em_restarts(gl, dist, states, OPTS)
     got = run_em_sharded(
@@ -164,7 +164,7 @@ def test_sharded_checkpoint_resume(case, tmp_path):
     """A sharded run checkpointed mid-way resumes to the same answer,
     and its checkpoints interoperate with io/checkpoint.py."""
     gl, dist, state = case
-    from ngsf_hmm_tpu.io.checkpoint import load_checkpoint, save_checkpoint
+    from ngsf_hmm.io.checkpoint import load_checkpoint, save_checkpoint
 
     spec = parse_mesh_spec("ind=8")
     full = run_em_sharded(gl, dist, state, OPTS, spec)
@@ -192,7 +192,7 @@ def test_sharded_checkpoint_resume(case, tmp_path):
 
 
 def test_cli_mesh_run(tmp_path, monkeypatch):
-    """`python -m ngsf_hmm_tpu --mesh ...` produces outputs matching the
+    """`python -m ngsf_hmm --mesh ...` produces outputs matching the
     single-device CLI run (VERDICT item 1's done-criterion). Small
     forced gather windows make the chunked final writers cross several
     site-chunk and ind-block boundaries (incl. clamped last windows:
@@ -202,8 +202,8 @@ def test_cli_mesh_run(tmp_path, monkeypatch):
     import os
     import pathlib
 
-    from ngsf_hmm_tpu.cli import main
-    from ngsf_hmm_tpu.tools.simulate import simulate
+    from ngsf_hmm.cli import main
+    from ngsf_hmm.tools.simulate import simulate
 
     monkeypatch.setenv("NGSF_GENO_GATHER_CHUNK", "64")
     monkeypatch.setenv("NGSF_IBD_GATHER_INDS", "3")
@@ -257,7 +257,7 @@ def test_cli_mesh_ld_fails_fast(tmp_path, capsys):
     """--mesh + the LD path (--freq_est 2 / --e_prob 2) must error at
     arg-parse time -- before any IO or the pair-EM init -- since
     run_em_sharded rejects it anyway (parallel/driver.py)."""
-    from ngsf_hmm_tpu.cli import main
+    from ngsf_hmm.cli import main
 
     for flag in ("--freq_est 2", "--e_prob 2"):
         with pytest.raises(SystemExit) as ei:
@@ -307,7 +307,7 @@ def test_gather_final_false_device_results(case):
     PADDED while the run itself matches the gathered variant bit for
     bit; fetch_chunk windows (with the dynamic-slice clamp compensated)
     reassemble the exact gathered arrays."""
-    from ngsf_hmm_tpu.parallel.distributed import fetch_chunk
+    from ngsf_hmm.parallel.distributed import fetch_chunk
 
     gl, dist, state = case
     S, N = gl.shape[0], gl.shape[1]

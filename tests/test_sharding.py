@@ -6,9 +6,9 @@ import jax.numpy as jnp
 import pytest
 
 import oracle
-from ngsf_hmm_tpu.models.em import EMState, em_iteration, init_state
-from ngsf_hmm_tpu.parallel.mesh import make_mesh
-from ngsf_hmm_tpu.parallel.sharded_em import (
+from ngsf_hmm.models.em import EMState, em_iteration, init_state
+from ngsf_hmm.parallel.mesh import make_mesh
+from ngsf_hmm.parallel.sharded_em import (
     make_sharded_em_step,
     make_sharded_viterbi,
     shard_inputs,
@@ -80,7 +80,7 @@ def test_sharded_step_pallas_tier_matches(case):
 def test_sharded_viterbi_matches(case):
     gl, dist, state = case
     state1, _ = em_iteration(gl, dist, state)
-    from ngsf_hmm_tpu.models.hmm import viterbi
+    from ngsf_hmm.models.hmm import viterbi
 
     want, _ = viterbi(state1.e_prob, dist, state1.indF, state1.alpha)
 
@@ -106,7 +106,7 @@ def test_restart_axis(case):
         ind_lkl=jnp.stack([state.ind_lkl, state.ind_lkl]),
     )
     # fix the replicate-1 emission to its own freq for a fair comparison
-    from ngsf_hmm_tpu.ops.emissions import calc_emission
+    from ngsf_hmm.ops.emissions import calc_emission
 
     e1 = calc_emission(gl, (state.freq * 0.5)[:, None])
     state_r = state_r._replace(e_prob=state_r.e_prob.at[1].set(e1))

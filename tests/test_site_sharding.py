@@ -10,8 +10,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from ngsf_hmm_tpu.models.em import em_iteration, init_state
-from ngsf_hmm_tpu.parallel.site_sharded import (
+from ngsf_hmm.models.em import em_iteration, init_state
+from ngsf_hmm.parallel.site_sharded import (
     make_site_mesh,
     make_site_sharded_em_step,
     shard_site_inputs,
@@ -76,94 +76,6 @@ def test_site_sharded_em_matches_single_device(data):
         np.testing.assert_array_equal(sh, shards[0])
 
 
-def test_site_sharded_pallas_maf_matches_xla(data):
-    """maf_kernel="pallas" (VMEM-resident freq fixed point, interpret
-    mode on CPU) must reproduce the XLA est_maf path: same damped
-    accumulators, same early-exit semantics, to f32 roundoff."""
-    gl, dist, state0 = data
-    mesh = make_site_mesh(8)
-    step_x = make_site_sharded_em_step(mesh)
-    step_p = make_site_sharded_em_step(mesh, maf_kernel="pallas")
-    gl_d, dist_d, st_x = shard_site_inputs(mesh, gl, dist, state0)
-    st_p = st_x
-    for _ in range(2):
-        st_x, _ = step_x(gl_d, dist_d, st_x)
-        st_p, _ = step_p(gl_d, dist_d, st_p)
-    np.testing.assert_allclose(
-        np.asarray(st_p.freq), np.asarray(st_x.freq), atol=2e-6
-    )
-    np.testing.assert_allclose(
-        np.asarray(st_p.ind_lkl), np.asarray(st_x.ind_lkl), rtol=1e-5
-    )
-    np.testing.assert_allclose(
-        np.asarray(st_p.indF), np.asarray(st_x.indF), atol=2e-4
-    )
-
-
-def test_site_sharded_pallas_chain_matches_blocked(data):
-    """chain_kernel="pallas": the streamed block-transfer kernel + the
-    carry-aware cross-block combine must reproduce the blocked-linear
-    sharded EM trajectory (same gather, same L-BFGS decisions) to f32
-    kernel tolerances."""
-    gl, dist, state0 = data
-    mesh = make_site_mesh(8)
-    step_b = make_site_sharded_em_step(mesh)
-    step_p = make_site_sharded_em_step(
-        mesh, chain_kernel="pallas", maf_kernel="pallas"
-    )
-    gl_d, dist_d, st_b = shard_site_inputs(mesh, gl, dist, state0)
-    st_p = st_b
-    for _ in range(2):
-        st_b, _ = step_b(gl_d, dist_d, st_b)
-        st_p, stats_p = step_p(gl_d, dist_d, st_p)
-        assert float(stats_p.fwbw_maxdiff) < 1e-2
-    np.testing.assert_allclose(
-        np.asarray(st_p.ind_lkl), np.asarray(st_b.ind_lkl), rtol=2e-5
-    )
-    np.testing.assert_allclose(
-        np.asarray(st_p.indF), np.asarray(st_b.indF), atol=5e-4
-    )
-    np.testing.assert_allclose(
-        np.asarray(st_p.alpha), np.asarray(st_b.alpha), atol=5e-3
-    )
-    np.testing.assert_allclose(
-        np.asarray(st_p.freq), np.asarray(st_b.freq), atol=5e-5
-    )
-    np.testing.assert_allclose(
-        np.asarray(st_p.p_ibd), np.asarray(st_b.p_ibd), atol=5e-3
-    )
-
-
-def test_grid_pallas_chain_matches_blocked(data):
-    """The pallas chain tier composes with ind sharding on the 2-D
-    (ind, site) grid mesh (chain local to each rectangle, carries over
-    "site", est_maf psum over "ind")."""
-    from ngsf_hmm_tpu.parallel.site_sharded import (
-        make_grid_mesh,
-        make_grid_sharded_em_step,
-        shard_grid_inputs,
-    )
-
-    gl, dist, state0 = data
-    mesh = make_grid_mesh(2, 4)
-    step_b = make_grid_sharded_em_step(mesh)
-    step_p = make_grid_sharded_em_step(mesh, chain_kernel="pallas")
-    gl_d, dist_d, st_b = shard_grid_inputs(mesh, gl, dist, state0)
-    st_p = st_b
-    for _ in range(2):
-        st_b, _ = step_b(gl_d, dist_d, st_b)
-        st_p, _ = step_p(gl_d, dist_d, st_p)
-    np.testing.assert_allclose(
-        np.asarray(st_p.ind_lkl), np.asarray(st_b.ind_lkl), rtol=2e-5
-    )
-    np.testing.assert_allclose(
-        np.asarray(st_p.indF), np.asarray(st_b.indF), atol=5e-4
-    )
-    np.testing.assert_allclose(
-        np.asarray(st_p.freq), np.asarray(st_b.freq), atol=5e-5
-    )
-
-
 def test_site_sharded_uneven_would_fail_loudly(data):
     """Shard counts must divide S (no silent padding across devices)."""
     gl, dist, state0 = data
@@ -186,8 +98,8 @@ def test_site_sharded_viterbi_matches(data, compat):
     """The max-plus boundary-state decomposition must reproduce the
     monolithic Viterbi path exactly (both the compat in-place variant
     and the textbook one)."""
-    from ngsf_hmm_tpu.models.hmm import viterbi
-    from ngsf_hmm_tpu.parallel.site_sharded import make_site_sharded_viterbi
+    from ngsf_hmm.models.hmm import viterbi
+    from ngsf_hmm.parallel.site_sharded import make_site_sharded_viterbi
     from jax.sharding import NamedSharding, PartitionSpec as P
 
     gl, dist, state0 = data
@@ -214,7 +126,7 @@ def test_site_sharded_viterbi_matches(data, compat):
 def test_grid_mesh_2d_matches_single_device(data):
     """Composed (ind, site) 2-D mesh (2 ind-shards x 4 site-shards):
     full EM trajectories must match the single-device linear engine."""
-    from ngsf_hmm_tpu.parallel.site_sharded import (
+    from ngsf_hmm.parallel.site_sharded import (
         make_grid_mesh,
         make_grid_sharded_em_step,
         shard_grid_inputs,
@@ -251,8 +163,8 @@ def test_grid_sharded_viterbi_matches(data, compat):
     """Decode on the 2-D (ind, site) grid reproduces the monolithic
     Viterbi path exactly."""
     from jax.sharding import NamedSharding, PartitionSpec as P
-    from ngsf_hmm_tpu.models.hmm import viterbi
-    from ngsf_hmm_tpu.parallel.site_sharded import (
+    from ngsf_hmm.models.hmm import viterbi
+    from ngsf_hmm.parallel.site_sharded import (
         make_grid_mesh,
         make_grid_sharded_em_step,
         make_grid_sharded_viterbi,

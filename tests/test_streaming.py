@@ -13,8 +13,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from ngsf_hmm_tpu.models.em import EMOptions, em_iteration, init_state
-from ngsf_hmm_tpu.models.streaming import StreamingEM
+from ngsf_hmm.models.em import EMOptions, em_iteration, init_state
+from ngsf_hmm.models.streaming import StreamingEM
 
 
 @pytest.fixture(scope="module")
@@ -47,7 +47,7 @@ def test_streaming_matches_monolithic(data):
     prev_tot = tot = 0.0
     prev_ind = np.full(N, -np.inf)
     max_eps = -np.inf
-    from ngsf_hmm_tpu.models.em import _array_max_pos
+    from ngsf_hmm.models.em import _array_max_pos
 
     while ((prev_tot - tot > opts.min_epsilon or max_eps > opts.min_epsilon
             or iters_mono < opts.min_iters) and iters_mono < opts.max_iters):
@@ -151,12 +151,12 @@ def test_fused_stream_gradient_matches_oracle(data):
     """The single-stream fused gradient (per-chunk transfer tangents +
     host Fisher-identity assembly) must match the sequential f64 analytic
     gradient, chromosome breaks and ragged chunks included."""
-    from ngsf_hmm_tpu.models.hmm import loglik_value_and_grad
-    from ngsf_hmm_tpu.models.streaming import (
+    from ngsf_hmm.models.hmm import loglik_value_and_grad
+    from ngsf_hmm.models.streaming import (
         _assemble_chain,
         _grad_from_transfers,
     )
-    from ngsf_hmm_tpu.ops.emissions import calc_emission
+    from ngsf_hmm.ops.emissions import calc_emission
 
     gl, dist = data
     S, N = gl.shape[0], gl.shape[1]
@@ -196,9 +196,9 @@ def test_streaming_single_chunk_degenerate(data):
 def test_streaming_viterbi_matches_monolithic(data):
     """The chunked max-plus boundary decode reproduces the monolithic
     Viterbi path exactly (both quirk-compat and textbook)."""
-    from ngsf_hmm_tpu.models.hmm import viterbi
-    from ngsf_hmm_tpu.models.streaming import StreamingEM, streaming_viterbi
-    from ngsf_hmm_tpu.ops.emissions import calc_emission
+    from ngsf_hmm.models.hmm import viterbi
+    from ngsf_hmm.models.streaming import StreamingEM, streaming_viterbi
+    from ngsf_hmm.ops.emissions import calc_emission
 
     gl, dist = data
     S, N = gl.shape[0], gl.shape[1]
@@ -221,7 +221,7 @@ def test_streaming_exact_resume(data, tmp_path):
     """Streaming run interrupted at iteration 3 and resumed from the
     (freq, F, alpha) checkpoint finishes identically to an uninterrupted
     run -- emissions regenerate from freq, so the tiny state suffices."""
-    from ngsf_hmm_tpu.io.checkpoint import (
+    from ngsf_hmm.io.checkpoint import (
         load_stream_checkpoint,
         save_stream_checkpoint,
     )
@@ -264,8 +264,8 @@ def test_streaming_ind_sharded_matches_unsharded(data):
     sums become psums; everything else is per-individual)."""
     import jax
 
-    from ngsf_hmm_tpu.models.streaming import streaming_viterbi
-    from ngsf_hmm_tpu.parallel.mesh import make_mesh
+    from ngsf_hmm.models.streaming import streaming_viterbi
+    from ngsf_hmm.parallel.mesh import make_mesh
 
     gl, dist = data
     S, N = gl.shape[0], gl.shape[1]
@@ -309,8 +309,8 @@ def test_streaming_mesh_cli(data, tmp_path, monkeypatch):
     import io
     import os
 
-    from ngsf_hmm_tpu.tools.simulate import simulate
-    from ngsf_hmm_tpu.cli import main
+    from ngsf_hmm.tools.simulate import simulate
+    from ngsf_hmm.cli import main
 
     d = tmp_path
     simulate(n_ind=8, n_sites=400, freq="0.2", site_pos="r", indF="0.4",
@@ -396,8 +396,8 @@ def test_streaming_n_rep_sequential_restarts(tmp_path):
     random inits with GslTaus(seed + r), like stack_restart_states)."""
     import os
 
-    from ngsf_hmm_tpu.cli import main
-    from ngsf_hmm_tpu.tools.simulate import simulate
+    from ngsf_hmm.cli import main
+    from ngsf_hmm.tools.simulate import simulate
 
     d = tmp_path
     simulate(n_ind=6, n_sites=300, freq="0.2", site_pos="r", indF="0.4",
@@ -444,7 +444,7 @@ def test_streaming_n_rep_checkpoint_rejected(tmp_path, capsys):
     reference-style error path."""
     import os
 
-    from ngsf_hmm_tpu.cli import main
+    from ngsf_hmm.cli import main
 
     cwd = os.getcwd()
     try:
@@ -465,8 +465,8 @@ def test_streaming_cli_errors_are_reference_style(tmp_path, capsys):
     divisible by the mesh ind axis (StreamingEM.__init__ ValueError)."""
     import os
 
-    from ngsf_hmm_tpu.cli import main
-    from ngsf_hmm_tpu.tools.simulate import simulate
+    from ngsf_hmm.cli import main
+    from ngsf_hmm.tools.simulate import simulate
 
     d = tmp_path
     simulate(n_ind=8, n_sites=60, freq="0.2", indF="0.4", alpha="0.05",
@@ -495,8 +495,8 @@ def test_cli_stream_file_matches_preloaded(tmp_path):
     import gzip
     import os
 
-    from ngsf_hmm_tpu.cli import main
-    from ngsf_hmm_tpu.tools.simulate import simulate
+    from ngsf_hmm.cli import main
+    from ngsf_hmm.tools.simulate import simulate
 
     d = tmp_path
     simulate(n_ind=6, n_sites=300, freq="0.2", site_pos="r", indF="0.4",
@@ -537,7 +537,7 @@ def test_cli_stream_file_matches_preloaded(tmp_path):
 
 
 def test_cli_stream_file_requires_stream_chunk():
-    from ngsf_hmm_tpu.cli import main
+    from ngsf_hmm.cli import main
 
     with contextlib.redirect_stdout(io.StringIO()):
         with pytest.raises(SystemExit):

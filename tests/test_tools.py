@@ -11,7 +11,7 @@ import subprocess
 import numpy as np
 import pytest
 
-from ngsf_hmm_tpu.tools.convert_ibd import (
+from ngsf_hmm.tools.convert_ibd import (
     bed_to_pos,
     pos_to_bed,
     read_inds,
@@ -110,7 +110,7 @@ def test_star_applies_to_all(fixture_files):
 
 def test_plotter_smoke(fixture_files):
     tmp, n_ind, n_sites = fixture_files
-    from ngsf_hmm_tpu.tools.plot_ibd import main
+    from ngsf_hmm.tools.plot_ibd import main
 
     rc = main([
         "--in_file", str(tmp / "run.ibd"), "--n_ind", str(n_ind),
@@ -130,7 +130,7 @@ def test_cli_short_options_parse_like_getopt():
     long-prefix matches (-s must not become --seed); bundling (-lL,
     -IA) and glued args (-s1000) work; '--se' still prefix-matches
     --seed (reference optstring parse_args.cpp:71)."""
-    from ngsf_hmm_tpu.cli import parse_args
+    from ngsf_hmm.cli import parse_args
 
     p = parse_args("-n 20 -s 1000 -S 7".split())
     assert p["n_ind"] == 20
@@ -146,3 +146,35 @@ def test_cli_short_options_parse_like_getopt():
     assert p["seed"] == 42
     assert p["min_iters"] == 3
     assert p["max_iters"] == 9
+
+
+def test_simulate_binary_round_trips_through_the_readers(tmp_path):
+    """The vectorised simulator writes the reference's binary GL layout
+    and a position file the CLI's readers accept; its IBD chain has the
+    stationary share F."""
+    from ngsf_hmm.io.readers import read_geno, read_pos_dist, sniff_binary
+    from ngsf_hmm.tools.simulate import simulate_binary
+
+    out = str(tmp_path / "sim")
+    N, S = 6, 4000
+    path = simulate_binary(N, S, out, indF=0.4, alpha=0.5, seed=3)
+    assert path.shape == (N, S) and set(np.unique(path)) <= {0, 1}
+    assert abs(path.mean() - 0.4) < 0.1
+    assert sniff_binary(out + ".glf", N, S)
+    gl = read_geno(out + ".glf", N, S, binary=True)
+    assert gl.shape == (S, N, 3) and np.all(np.isfinite(gl))
+    np.testing.assert_allclose(np.exp(gl).sum(-1), 1.0, rtol=1e-12)
+    dist = read_pos_dist(out + ".pos.gz", S)
+    assert dist.shape == (S,) and np.all(dist[1:] >= 1)
+
+
+def test_synth_device_gls_are_normalised_and_seeded():
+    from ngsf_hmm.tools.simulate import synth_device
+
+    gl, dist = synth_device(500, 7, seed=5)
+    gl2, _ = synth_device(500, 7, seed=5)
+    assert gl.shape == (500, 7, 3) and dist.shape == (500,)
+    np.testing.assert_allclose(np.exp(np.asarray(gl, np.float64)).sum(-1),
+                               1.0, rtol=1e-5)
+    np.testing.assert_array_equal(np.asarray(gl), np.asarray(gl2))
+    assert np.all(np.asarray(dist) > 0)

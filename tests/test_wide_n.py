@@ -1,24 +1,20 @@
 """Wide-N (N = 1000) parity: the BASELINE ladder's individual axis.
 
-Round-4 VERDICT Missing #3 / ask #1: every prior measurement and test ran
-at N in {32, 100}; the N axis is where the reference's serial freq M-step
-dies (EM.cpp:224-271, gen_func.cpp:984-1005 -- the cross-individual
-reduction) and where this engine's wide-N machinery engages: the v2 fold
-geometry walks G = N/8 lane groups with static plane slices
-(ops/maf_pallas._run_macro_slab), the M-step batches 1000 L-BFGS rows,
-and pick_geom2's SLAB_MAF_LANES cap must keep the slab est_maf route
-enabled instead of silently falling back to the tiles path (and its
-full-size gl copy).
+The N axis is where the reference's serial freq M-step dies
+(EM.cpp:224-271, gen_func.cpp:984-1005 -- the cross-individual
+reduction) and where this engine's wide-N machinery engages: the chain
+kernels' lane geometry (N * nb_p chains), the M-step's 1000 batched
+L-BFGS rows and the wide est_maf reductions.
 
-Sites are kept small (CPU CI; pallas runs in interpret mode) -- the
-WIDTH is what is under test.
+Sites are kept small (CPU CI; the chain kernels run in the Pallas
+interpreter) -- the WIDTH is what is under test.
 """
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from ngsf_hmm_tpu.models.em import EMOptions, em_iteration, init_state, run_em
+from ngsf_hmm.models.em import EMOptions, em_iteration, init_state, run_em
 
 N_W = 1000
 RNG = np.random.default_rng(1000)
@@ -55,22 +51,19 @@ def _wide_case(S, seed=7):
     return gl_lin, dist, freq0, indF0, alpha0
 
 
-def test_geometry_cap_keeps_slab_route():
-    """pick_geom2's SLAB_MAF_LANES cap: at wide N the depth-balancing
-    nb_p pick must shrink so the slab est_maf VMEM budget holds (the
-    uncapped pick gave C = 32000 at 1M x 1000 and silently disabled the
-    route). Also pins that the benched N <= 100 geometries are
-    unchanged by the cap."""
-    from ngsf_hmm_tpu.models.hmm_pallas import pick_geom2
-    from ngsf_hmm_tpu.ops.maf_pallas import slab_geom_ok
+def test_wide_geometry_bounds_lanes():
+    """At wide N the picker trades blocks for individuals: the chain
+    count N * nb_p stays near the card's lanes-in-flight target
+    (LANES_TARGET, within one lane tile per individual) instead of
+    growing with N, while blocks stay >= MIN_BLOCK sites."""
+    from ngsf_hmm.models import hmm_pallas as hp
 
-    for S, N in ((1_000_000, 1000), (500_000, 1000), (250_000, 1000),
-                 (250_000, 500), (10_000_000 // 40, 1000)):
-        bs, nbp = pick_geom2(S, N)
-        assert slab_geom_ok(S, N, bs, nbp), (S, N, bs, nbp)
-    # unchanged small-N geometry (the benched shapes)
-    assert pick_geom2(100_000, 32) == (391, 256)
-    assert pick_geom2(1_000_000, 100) == (1303, 768)
+    for S, N in ((1_000_000, 1000), (250_000, 1000), (250_000, 500),
+                 (10_000_000 // 40, 1000), (1_000_000, 5000)):
+        bs, nb_p = hp.pick_geom2(S, N)
+        nb, L, tile = hp._geom2(S, N, bs, nb_p)
+        assert L <= hp.LANES_TARGET + N * tile, (S, N, bs, nb_p)
+        assert bs >= hp.MIN_BLOCK and nb * bs >= S
 
 
 def test_wide_blocked_matches_scan_em():
@@ -104,7 +97,7 @@ def test_wide_macro_maf_drift():
     quirk at N = 1000 stays inside the 1e-4 gate (the N >= 96 schedule;
     larger N sharpens the cross-individual sums, so wide N should sit
     WELL inside)."""
-    from ngsf_hmm_tpu.ops.maf import est_maf
+    from ngsf_hmm.ops.maf import est_maf
 
     S = 512
     gl_lin, _, _, _, _ = _wide_case(S, seed=11)
@@ -119,11 +112,11 @@ def test_wide_macro_maf_drift():
 
 
 def test_wide_fused_posteriors_interpret():
-    """v2 GL-fused posteriors at the N = 1000 fold geometry (G = 125
-    lane groups) vs the f64 sequential kernels, interpret mode."""
-    from ngsf_hmm_tpu.models import hmm_pallas as hp
-    from ngsf_hmm_tpu.models.hmm import posteriors
-    from ngsf_hmm_tpu.ops.emissions import calc_emission
+    """GL-fused posteriors at N = 1000 (1000 individuals' lanes per
+    block) vs the f64 sequential kernels, interpret mode."""
+    from ngsf_hmm.models import hmm_pallas as hp
+    from ngsf_hmm.models.hmm import posteriors
+    from ngsf_hmm.ops.emissions import calc_emission
 
     S = 64
     gl_lin, dist, freq0, indF0, alpha0 = _wide_case(S, seed=23)
@@ -132,7 +125,7 @@ def test_wide_fused_posteriors_interpret():
     F = jnp.asarray(indF0, jnp.float32)
     a = jnp.asarray(alpha0, jnp.float32)
     prep2 = hp.prepare_gl_inputs(gl32, d32)
-    assert prep2["G"] == N_W // 8
+    assert prep2["L"] == N_W * prep2["nb_p"]
     fc = hp.freq_compact(jnp.asarray(freq0, jnp.float32), prep2)
     p_p, llf_p, llb_p = hp.posteriors_fused(F, a, prep2, fc)
     e = calc_emission(jnp.asarray(np.log(gl_lin)),
@@ -147,35 +140,9 @@ def test_wide_fused_posteriors_interpret():
                                rtol=2e-6)
 
 
-def test_wide_slab_est_maf_interpret():
-    """The slab est_maf kernel's static G = 125 lane-group walk at
-    N = 1000 matches the XLA macro path (the same 2e-5 gate as the
-    N <= 100 cases in test_maf.py)."""
-    from ngsf_hmm_tpu.models.hmm_pallas import (
-        pack_sites2, prepare_gl_inputs,
-    )
-    from ngsf_hmm_tpu.ops.maf import est_maf, macro_schedule
-    from ngsf_hmm_tpu.ops.maf_pallas import est_maf_slab, slab_geom_ok
-
-    S = 64
-    gl_lin, _, _, _, _ = _wide_case(S, seed=31)
-    rng = np.random.default_rng(33)
-    p = rng.random((S, N_W)) * 0.9
-    p[5, :] = 1.0  # het-floor row
-    gl32 = jnp.asarray(gl_lin, jnp.float32)
-    p32 = jnp.asarray(p, jnp.float32)
-    assert macro_schedule(N_W) is not None
-    assert slab_geom_ok(S, N_W)
-    prep2 = prepare_gl_inputs(gl32, jnp.zeros(S))
-    p_slab = pack_sites2(p32, prep2)
-    want = np.asarray(est_maf(gl32, p32, linear=True, macro=True))
-    got = np.asarray(est_maf_slab(prep2, p_slab, macro=True))
-    np.testing.assert_allclose(got, want, atol=2e-5)
-
-
 def test_wide_em_iteration_pallas_route():
-    """One full pallas em_iteration at N = 1000 (fused kernels + slab
-    est_maf engaged) vs the f64 scan iteration: freq/posterior/lkl
+    """One full pallas em_iteration at N = 1000 (Triton chain kernels +
+    XLA macro est_maf) vs the f64 scan iteration: freq/posterior/lkl
     agreement within the speed-tier envelopes."""
     S = 64
     gl_lin, dist, freq0, indF0, alpha0 = _wide_case(S, seed=41)
@@ -195,7 +162,7 @@ def test_wide_em_iteration_pallas_route():
                                np.asarray(st_s.p_ibd), atol=5e-5)
     np.testing.assert_allclose(np.asarray(st_p.ind_lkl),
                                np.asarray(st_s.ind_lkl), rtol=2e-6)
-    # freq: pallas slab macro vs f64 exact damped -- macro drift gate
+    # freq: f32 macro vs f64 exact damped -- macro drift gate
     np.testing.assert_allclose(np.asarray(st_p.freq),
                                np.asarray(st_s.freq), atol=2e-4)
     # M-step endpoints after a single COLD iteration, f32 pallas vs f64
